@@ -1,9 +1,9 @@
-// chroma_tpu native helpers: the CPU-side heavy lifting of geometry
+// chroma_jax native helpers: the CPU-side heavy lifting of geometry
 // preparation, playing the role of the reference's CUDA BVH builder
-// kernels (reference: chroma/cuda/bvh.cu) for the TPU stack.
+// kernels (reference: chroma/cuda/bvh.cu).
 //
 // Exposed via a plain C ABI and loaded with ctypes
-// (chroma_tpu/native.py); the numpy implementations remain as a
+// (chroma_jax/native.py); the numpy implementations remain as a
 // fallback so the framework runs without a compiler.
 //
 // Functions:
@@ -159,7 +159,7 @@ void segment_min_max_u32(const uint32_t* lo, const uint32_t* hi,
 // "atoms", and collapsed into BRANCH-wide nodes by repeatedly
 // expanding the largest-surface-area frontier member.  Wide node ids
 // are assigned in BFS order so every node's children occupy
-// consecutive ids (the only ordering the TPU walker requires).
+// consecutive ids (the only ordering the MBVH walker requires).
 
 namespace sah {
 
@@ -407,7 +407,7 @@ void sah_wide_fetch(uint8_t* kind, int64_t* child_start,
 
 
 // ---------------------------------------------------------------------
-// BSP-tree CSG on triangle soups (native backend of chroma_tpu/csg.py;
+// BSP-tree CSG on triangle soups (native backend of chroma_jax/csg.py;
 // the reference meshes boolean solids through gmsh/OCC,
 // chroma/rat/gen_mesh.py:56).  Thibault-Naylor polygon clipping.
 

@@ -1,5 +1,5 @@
 """A minimal fake of the ``geant4_pybind`` API surface that
-chroma_tpu/generator/g4gen.py consumes — just enough to drive one
+chroma_jax/generator/g4gen.py consumes — just enough to drive one
 scripted event through the REAL harvester / stepping / gun wiring.
 
 Install with ``sys.modules['geant4_pybind'] = make_fake()`` BEFORE

@@ -1,4 +1,4 @@
-"""A minimal fake of the PyROOT surface chroma_tpu/io/root.py uses:
+"""A minimal fake of the PyROOT surface chroma_jax/io/root.py uses:
 std.vector, TFile, TTree with per-Fill branch snapshots.  Lets the
 ROOT IO round-trip run (and be verified) without ROOT installed."""
 import sys

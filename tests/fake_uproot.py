@@ -1,4 +1,4 @@
-"""Minimal fakes of the uproot/awkward surface chroma_tpu/io/ntuple.py
+"""Minimal fakes of the uproot/awkward surface chroma_jax/io/ntuple.py
 uses — uproot is not installed in this image, so these are what keep
 the ntuple writer schema code exercised (same pattern as
 tests/fake_root.py for PyROOT).

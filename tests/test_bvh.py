@@ -4,8 +4,8 @@ validity checks the reference lacked)."""
 import numpy as np
 import pytest
 
-from chroma_tpu import make
-from chroma_tpu.bvh import (BVH, WorldCoords, OutOfRangeError, CHILD_BITS,
+from chroma_jax import make
+from chroma_jax.bvh import (BVH, WorldCoords, OutOfRangeError, CHILD_BITS,
                             unpack_nodes, node_areas, to_uint4, from_uint4,
                             make_recursive_grid_bvh, make_simple_bvh,
                             create_leaf_nodes)
@@ -141,11 +141,11 @@ def test_leaf_quantization_conservative():
 def test_optimize_layer_reduces_pair_area():
     """Greedy sibling pairing lowers the summed pair-union area
     (reference gpu/bvh.py:269 behavior)."""
-    from chroma_tpu.bvh.optimize import optimize_layer, \
+    from chroma_jax.bvh.optimize import optimize_layer, \
         _pair_area_matrix
-    from chroma_tpu.bvh.bvh import unpack_nodes
-    from chroma_tpu.bvh.build import create_leaf_nodes
-    from chroma_tpu import make
+    from chroma_jax.bvh.bvh import unpack_nodes
+    from chroma_jax.bvh.build import create_leaf_nodes
+    from chroma_jax import make
 
     mesh = make.sphere(1.0, nsteps=12)
     _, leaves, _ = create_leaf_nodes(mesh)
@@ -176,12 +176,12 @@ def test_optimize_layer_reduces_pair_area():
 def test_area_sort_children_preserves_intersections():
     """Child reordering must not change what rays hit."""
     import jax.numpy as jnp
-    from chroma_tpu.bvh.optimize import area_sort_children
-    from chroma_tpu import make
-    from chroma_tpu.geometry import Geometry, Solid, vacuum
-    from chroma_tpu.loader import create_geometry_from_obj
-    from chroma_tpu.ops.geometry_pack import pack_geometry
-    from chroma_tpu.ops import mesh as mesh_ops
+    from chroma_jax.bvh.optimize import area_sort_children
+    from chroma_jax import make
+    from chroma_jax.geometry import Geometry, Solid, vacuum
+    from chroma_jax.loader import create_geometry_from_obj
+    from chroma_jax.ops.geometry_pack import pack_geometry
+    from chroma_jax.ops import mesh as mesh_ops
     from tests.test_intersect import random_rays
 
     geo = Geometry(vacuum)

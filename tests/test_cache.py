@@ -6,10 +6,10 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import make
-from chroma_tpu.cache import Cache, GeometryNotFoundError, BVHNotFoundError
-from chroma_tpu.geometry import Geometry, Solid, vacuum
-from chroma_tpu.bvh import make_simple_bvh
+from chroma_jax import make
+from chroma_jax.cache import Cache, GeometryNotFoundError, BVHNotFoundError
+from chroma_jax.geometry import Geometry, Solid, vacuum
+from chroma_jax.bvh import make_simple_bvh
 
 
 @pytest.fixture
@@ -67,3 +67,34 @@ def test_bvh_round_trip(cache):
     cache.remove_bvh(mesh_hash, 'alt')
     with pytest.raises(BVHNotFoundError):
         cache.load_bvh(mesh_hash, 'alt')
+
+
+def test_jax_cache_dir_follows_environment(monkeypatch, tmp_path):
+    """$JAX_COMPILATION_CACHE_DIR wins, and then JAX (which reads the
+    variable itself) is configured with nothing else."""
+    import jax
+    from chroma_jax import cache as cache_mod
+    monkeypatch.setenv('JAX_COMPILATION_CACHE_DIR', str(tmp_path))
+    calls = []
+    monkeypatch.setattr(jax.config, 'update',
+                        lambda *a: calls.append(a))
+    assert cache_mod.jax_cache_dir() == str(tmp_path)
+    assert cache_mod.enable_jax_cache() == str(tmp_path)
+    assert calls == []
+
+
+def test_jax_cache_dir_defaults_to_checkout(monkeypatch):
+    """Unset, the compile cache lives at one fixed path inside the
+    checkout (listed in .gitignore through .cache/)."""
+    import jax
+    from chroma_jax import cache as cache_mod
+    monkeypatch.delenv('JAX_COMPILATION_CACHE_DIR', raising=False)
+    calls = []
+    monkeypatch.setattr(jax.config, 'update',
+                        lambda *a: calls.append(a))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    expected = os.path.join(root, '.cache', 'jax')
+    assert cache_mod.jax_cache_dir() == expected
+    assert cache_mod.jax_cache_dir() == expected
+    assert cache_mod.enable_jax_cache() == expected
+    assert calls == [('jax_compilation_cache_dir', expected)]

@@ -6,13 +6,13 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import event, make
-from chroma_tpu.geometry import Solid, vacuum
-from chroma_tpu.detector import Detector
-from chroma_tpu.demo.optics import r7081hqe_photocathode
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu.sim import Simulation
-from chroma_tpu.generator.photon import photon_bomb
+from chroma_jax import event, make
+from chroma_jax.geometry import Solid, vacuum
+from chroma_jax.detector import Detector
+from chroma_jax.demo.optics import r7081hqe_photocathode
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax.sim import Simulation
+from chroma_jax.generator.photon import photon_bomb
 
 
 @pytest.fixture(scope='module')

@@ -1,8 +1,8 @@
 """Event model tests."""
 import numpy as np
 
-from chroma_tpu import event
-from chroma_tpu.event import Photons, Vertex, Event, Channels
+from chroma_jax import event
+from chroma_jax.event import Photons, Vertex, Event, Channels
 
 
 def make_photons(n, seed=0):

@@ -18,8 +18,8 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import event
-from chroma_tpu.demo.optics import water
+from chroma_jax import event
+from chroma_jax.demo.optics import water
 
 HBARC_MEV_NM = 197.3269804e-6
 
@@ -38,10 +38,10 @@ def _scint_material():
 def g4gen(monkeypatch):
     import tests.fake_geant4 as fg
     monkeypatch.setitem(sys.modules, 'geant4_pybind', fg.make_fake())
-    sys.modules.pop('chroma_tpu.generator.g4gen', None)
-    mod = importlib.import_module('chroma_tpu.generator.g4gen')
+    sys.modules.pop('chroma_jax.generator.g4gen', None)
+    mod = importlib.import_module('chroma_jax.generator.g4gen')
     yield mod
-    sys.modules.pop('chroma_tpu.generator.g4gen', None)
+    sys.modules.pop('chroma_jax.generator.g4gen', None)
 
 
 def test_material_conversion(g4gen):
@@ -104,7 +104,7 @@ def test_tracking_vertex_tree(g4gen):
 def test_schema_matches_trackgen(g4gen):
     """The Geant4 backend and the native TrackGenerator must emit
     interchangeable Photons (the worker pool treats them as equals)."""
-    from chroma_tpu.generator.trackgen import TrackGenerator
+    from chroma_jax.generator.trackgen import TrackGenerator
     mat = _scint_material()
     g4photons = g4gen.G4Generator(mat, seed=3).generate_photons(
         [event.Vertex('e-', (0, 0, 0), (0, 0, 1), 1.0)])

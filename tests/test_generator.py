@@ -9,10 +9,10 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import event
-from chroma_tpu.demo.optics import water
-from chroma_tpu.generator.photon import G4ParallelGenerator, HAVE_ZMQ
-from chroma_tpu.generator.vertex import constant_particle_gun
+from chroma_jax import event
+from chroma_jax.demo.optics import water
+from chroma_jax.generator.photon import G4ParallelGenerator, HAVE_ZMQ
+from chroma_jax.generator.vertex import constant_particle_gun
 
 pytestmark = pytest.mark.skipif(not HAVE_ZMQ, reason='pyzmq missing')
 
@@ -36,11 +36,11 @@ def test_server_round_trip():
     """Pickle-protocol propagation server answers with propagated
     photons (model: bin/chroma-server flow, SURVEY §3.5)."""
     import zmq
-    from chroma_tpu import make
-    from chroma_tpu.geometry import Solid, Geometry, vacuum
-    from chroma_tpu.loader import create_geometry_from_obj
-    from chroma_tpu.cli.server import ChromaServer
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax import make
+    from chroma_jax.geometry import Solid, Geometry, vacuum
+    from chroma_jax.loader import create_geometry_from_obj
+    from chroma_jax.cli.server import ChromaServer
+    from chroma_jax.generator.photon import photon_bomb
 
     geo = Geometry(vacuum)
     geo.add_solid(Solid(make.box(100, 100, 100), vacuum, vacuum))
@@ -49,7 +49,7 @@ def test_server_round_trip():
     import uuid
     # unique per run: a stale server process bound to the same ipc path
     # would race for our requests
-    address = 'ipc:///tmp/chroma_tpu_test_server_' + uuid.uuid4().hex
+    address = 'ipc:///tmp/chroma_jax_test_server_' + uuid.uuid4().hex
     server = ChromaServer(address, geo, geant4_processes=0)
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()

@@ -3,9 +3,9 @@ geometry semantics)."""
 import numpy as np
 import pytest
 
-from chroma_tpu.geometry import (Mesh, Solid, Material, Surface, Geometry,
+from chroma_jax.geometry import (Mesh, Solid, Material, Surface, Geometry,
                                  vacuum, standard_wavelengths)
-from chroma_tpu import make
+from chroma_jax import make
 
 
 def test_mesh_validation():

@@ -25,9 +25,9 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import make
-from chroma_tpu.geometry import Material, Solid, Surface
-from chroma_tpu.detector import Detector
+from chroma_jax import make
+from chroma_jax.geometry import Material, Solid, Surface
+from chroma_jax.detector import Detector
 
 # the configuration is shared with tools/make_golden_reference.py (the
 # CUDA-reference generator) via tools/golden_config.py, so both engines
@@ -52,12 +52,12 @@ P_DETECT = SURVIVE_BULK * QE
 def sphere_sim():
     det = build_analytic_sphere(make, Solid, Material, Surface,
                                 Detector)
-    from chroma_tpu.sim import Simulation
+    from chroma_jax.sim import Simulation
     return Simulation(det, geant4_processes=0, seed=SPHERE_SEED)
 
 
 def _events(sim):
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax.generator.photon import photon_bomb
     for i in range(NEVENTS):
         yield next(sim.simulate(
             [photon_bomb(NPHOTONS, SPHERE_WAVELENGTH, (0.0, 0.0, 0.0))],

@@ -1,7 +1,7 @@
 """TLAS/BLAS instanced MBVH correctness.
 
 The instanced tree (one shared BLAS per unique solid + a TLAS over
-placements, chroma_tpu/bvh/mbvh.py build_mbvh_instanced) must agree
+placements, chroma_jax/bvh/mbvh.py build_mbvh_instanced) must agree
 with the flat tree built over the flattened mesh.  Small float
 differences are expected: the flat build bakes the rigid transform
 into float32 vertices while the instanced walk transforms the ray, so
@@ -14,18 +14,18 @@ import tests.conftest  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from chroma_tpu import event, make
-from chroma_tpu.geometry import Geometry, Solid, vacuum
-from chroma_tpu.detector import Detector
-from chroma_tpu.demo.optics import r7081hqe_photocathode, water, \
+from chroma_jax import event, make
+from chroma_jax.geometry import Geometry, Solid, vacuum
+from chroma_jax.detector import Detector
+from chroma_jax.demo.optics import r7081hqe_photocathode, water, \
     black_surface
-from chroma_tpu.transform import make_rotation_matrix
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu.ops.geometry_pack import pack_geometry, pack_detector
-from chroma_tpu.ops import mbvh as mbvh_ops
-from chroma_tpu.ops.daq import run_daq
-from chroma_tpu.ops.fused import propagate_fused
-from chroma_tpu.ops.propagate import make_photon_state
+from chroma_jax.transform import make_rotation_matrix
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax.ops.geometry_pack import pack_geometry, pack_detector
+from chroma_jax.ops import mbvh as mbvh_ops
+from chroma_jax.ops.daq import run_daq
+from chroma_jax.ops.fused import propagate_fused
+from chroma_jax.ops.propagate import make_photon_state
 
 
 def _instance_scene(seed=7, nboxes=14, nspheres=4):
@@ -52,7 +52,7 @@ def packed_pair():
 
 
 def test_instanced_flag(packed_pair):
-    from chroma_tpu.bvh.mbvh import KIND_ENTRY
+    from chroma_jax.bvh.mbvh import KIND_ENTRY
     gf, gi = packed_pair
     assert not gf.mbvh_instanced
     assert gi.mbvh_instanced

@@ -7,12 +7,12 @@ import pytest
 import tests.conftest  # noqa: F401  (forces CPU backend)
 import jax.numpy as jnp
 
-from chroma_tpu import make
-from chroma_tpu.geometry import Geometry, Solid, vacuum
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu.ops.geometry_pack import pack_geometry
-from chroma_tpu.ops.mesh import intersect_mesh
-from chroma_tpu.ops.intersect import intersect_triangle
+from chroma_jax import make
+from chroma_jax.geometry import Geometry, Solid, vacuum
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax.ops.geometry_pack import pack_geometry
+from chroma_jax.ops.mesh import intersect_mesh
+from chroma_jax.ops.intersect import intersect_triangle
 
 
 def brute_force(origin, direction, mesh):

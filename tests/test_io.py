@@ -4,10 +4,10 @@ import numpy as np
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import event
-from chroma_tpu.io.npz import NpzWriter, NpzReader
-from chroma_tpu.io import npz
-from chroma_tpu.generator.photon import photon_bomb
+from chroma_jax import event
+from chroma_jax.io.npz import NpzWriter, NpzReader
+from chroma_jax.io import npz
+from chroma_jax.generator.photon import photon_bomb
 
 
 def make_event(i):

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from chroma_tpu import make
-from chroma_tpu.geometry import Mesh
+from chroma_jax import make
+from chroma_jax.geometry import Mesh
 
 
 def mesh_volume(mesh):

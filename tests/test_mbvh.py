@@ -5,11 +5,11 @@ import pytest
 import tests.conftest  # noqa: F401
 import jax.numpy as jnp
 
-from chroma_tpu import make
-from chroma_tpu.bvh.mbvh import build_mbvh, ROW_WIDTH, BRANCH, TRI_ID_OFF
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu.ops.geometry_pack import pack_geometry
-from chroma_tpu.ops import mbvh as mbvh_ops
+from chroma_jax import make
+from chroma_jax.bvh.mbvh import build_mbvh, ROW_WIDTH, BRANCH, TRI_ID_OFF
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax.ops.geometry_pack import pack_geometry
+from chroma_jax.ops import mbvh as mbvh_ops
 from tests.test_intersect import brute_force, random_rays
 
 
@@ -112,7 +112,7 @@ def test_cascade_matches_plain_walker():
     try:
         mbvh_ops.CASCADE_MIN_N = 1 << 30     # force the plain loop
         res_p = jax.jit(
-            mbvh_ops._intersect_mesh_jnp.__wrapped__,
+            mbvh_ops.intersect_mesh.__wrapped__,
             static_argnames=('max_iters',))(origin, direction, geom,
                                             active=active)
     finally:
@@ -126,7 +126,7 @@ def test_cascade_matches_plain_walker():
 
 
 def pack_geometry_for(mesh):
-    from chroma_tpu.geometry import Geometry, vacuum, Solid
+    from chroma_jax.geometry import Geometry, vacuum, Solid
     geo = Geometry(vacuum)
     geo.add_solid(Solid(mesh, vacuum, vacuum))
     geo = create_geometry_from_obj(geo, update_bvh_cache=False)

@@ -5,12 +5,12 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu.histogram import Histogram, HistogramDD
-from chroma_tpu.parabola import parabola_fit, parabola_eval, minimum
-from chroma_tpu.color import map_wavelength, map_to_color
-from chroma_tpu.generator import vertex as gv
-from chroma_tpu.pi0 import pi0_decay, PI0_MASS
-from chroma_tpu.sample import uniform_sphere
+from chroma_jax.histogram import Histogram, HistogramDD
+from chroma_jax.parabola import parabola_fit, parabola_eval, minimum
+from chroma_jax.color import map_wavelength, map_to_color
+from chroma_jax.generator import vertex as gv
+from chroma_jax.pi0 import pi0_decay, PI0_MASS
+from chroma_jax.sample import uniform_sphere
 from itertools import islice
 
 
@@ -103,9 +103,9 @@ def test_map_to_color():
 
 
 def test_parametric_generator():
-    from chroma_tpu.generator.photon import ParametricGenerator
-    from chroma_tpu.demo.optics import water
-    from chroma_tpu import event as evmod
+    from chroma_jax.generator.photon import ParametricGenerator
+    from chroma_jax.demo.optics import water
+    from chroma_jax import event as evmod
     gen = ParametricGenerator(water, rng=np.random.RandomState(0))
     v = evmod.Vertex('e-', (0, 0, 0), (0, 0, 1), 100.0)
     photons = gen.generate_photons([v])

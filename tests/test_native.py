@@ -4,9 +4,9 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import native, make
-from chroma_tpu.bvh.build import morton_codes_3d
-from chroma_tpu.bvh import mbvh as mbvh_mod
+from chroma_jax import native, make
+from chroma_jax.bvh.build import morton_codes_3d
+from chroma_jax.bvh import mbvh as mbvh_mod
 
 pytestmark = pytest.mark.skipif(native.native() is None,
                                 reason='no C++ toolchain')

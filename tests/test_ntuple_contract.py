@@ -11,8 +11,8 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import event
-from chroma_tpu.generator.photon import photon_bomb
+from chroma_jax import event
+from chroma_jax.generator.photon import photon_bomb
 
 
 @pytest.fixture()
@@ -21,12 +21,12 @@ def ntio(monkeypatch):
     uproot, awkward = fu.make_fakes()
     monkeypatch.setitem(sys.modules, 'uproot', uproot)
     monkeypatch.setitem(sys.modules, 'awkward', awkward)
-    sys.modules.pop('chroma_tpu.io.ntuple', None)
-    mod = importlib.import_module('chroma_tpu.io.ntuple')
+    sys.modules.pop('chroma_jax.io.ntuple', None)
+    mod = importlib.import_module('chroma_jax.io.ntuple')
     assert mod.HAVE_UPROOT
     fu.FILES.clear()
     yield mod, fu
-    sys.modules.pop('chroma_tpu.io.ntuple', None)
+    sys.modules.pop('chroma_jax.io.ntuple', None)
 
 
 def make_event(i):
@@ -123,11 +123,11 @@ def test_missing_uproot_raises_with_pointer(tmp_path, monkeypatch):
     the native npz format."""
     monkeypatch.setitem(sys.modules, 'uproot', None)
     monkeypatch.setitem(sys.modules, 'awkward', None)
-    sys.modules.pop('chroma_tpu.io.ntuple', None)
+    sys.modules.pop('chroma_jax.io.ntuple', None)
     try:
-        mod = importlib.import_module('chroma_tpu.io.ntuple')
+        mod = importlib.import_module('chroma_jax.io.ntuple')
         assert not mod.HAVE_UPROOT
         with pytest.raises(ImportError, match='npz'):
             mod.NTupleWriter(str(tmp_path / 'x.ntuple'))
     finally:
-        sys.modules.pop('chroma_tpu.io.ntuple', None)
+        sys.modules.pop('chroma_jax.io.ntuple', None)

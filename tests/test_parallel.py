@@ -5,7 +5,7 @@ import pytest
 import tests.conftest  # noqa: F401
 import jax
 
-from chroma_tpu import event
+from chroma_jax import event
 
 
 @pytest.mark.slow
@@ -19,7 +19,7 @@ def test_sharded_matches_statistics():
     """Sharded propagation terminates photons with sane statistics and
     keeps the batch sharded."""
     import __graft_entry__ as g
-    from chroma_tpu.parallel import (make_photon_mesh, pad_to_multiple,
+    from chroma_jax.parallel import (make_photon_mesh, pad_to_multiple,
                                      propagate_sharded)
     geom, det = g._tiny_detector_tables()
     state = g._photon_state(8192, seed=3)
@@ -38,14 +38,14 @@ def test_sharded_matches_statistics():
 def test_simulation_on_mesh_matches_single_device():
     """Simulation over an 8-device mesh yields statistically identical
     hit distributions to the single-device path (VERDICT round-1 #3)."""
-    from chroma_tpu import make
-    from chroma_tpu.geometry import Solid
-    from chroma_tpu.detector import Detector
-    from chroma_tpu.demo.optics import water, r7081hqe_photocathode, \
+    from chroma_jax import make
+    from chroma_jax.geometry import Solid
+    from chroma_jax.detector import Detector
+    from chroma_jax.demo.optics import water, r7081hqe_photocathode, \
         black_surface
-    from chroma_tpu.sim import Simulation
-    from chroma_tpu.parallel import make_photon_mesh
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax.sim import Simulation
+    from chroma_jax.parallel import make_photon_mesh
+    from chroma_jax.generator.photon import photon_bomb
 
     det = Detector(water)
     det.add_solid(Solid(make.sphere(1000.0, nsteps=24), water, water,
@@ -89,14 +89,14 @@ def test_eval_pdf_on_mesh():
     """eval_pdf (use_weights + scatter_first through the fused driver)
     exercised on the 8-device mesh — the per-lane scatter_first
     subtlety deserves a mesh test (VERDICT round-2 weak #6)."""
-    from chroma_tpu import make
-    from chroma_tpu.geometry import Solid
-    from chroma_tpu.detector import Detector
-    from chroma_tpu.demo.optics import water, r7081hqe_photocathode, \
+    from chroma_jax import make
+    from chroma_jax.geometry import Solid
+    from chroma_jax.detector import Detector
+    from chroma_jax.demo.optics import water, r7081hqe_photocathode, \
         black_surface
-    from chroma_tpu.sim import Simulation
-    from chroma_tpu.parallel import make_photon_mesh
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax.sim import Simulation
+    from chroma_jax.parallel import make_photon_mesh
+    from chroma_jax.generator.photon import photon_bomb
 
     det = Detector(water)
     det.add_solid(Solid(make.sphere(1000.0, nsteps=24), water, water,
@@ -134,43 +134,3 @@ def test_eval_pdf_on_mesh():
         min_bin_content=10, nreps=2, ndaq=4)
     sigma = np.sqrt(float(hitcount[0] + hitcount_s[0]) + 1.0)
     assert abs(float(hitcount[0]) - float(hitcount_s[0])) < 6 * sigma
-
-
-@pytest.mark.slow
-def test_pallas_walker_under_shard_map(monkeypatch):
-    """Composition coverage: the PRODUCTION traversal (Pallas walker,
-    interpret mode on CPU) running inside shard_map on a 2-device mesh
-    must be bit-identical to running the same fused pallas driver
-    per-shard by hand.  Catches the block-spec-vs-shard-shape bug
-    class (ragged lane tails, fused.py walk padding) that pure
-    jnp-walker mesh tests cannot see.  Widths are deliberately NOT a
-    multiple of the kernel block (320 lanes/shard at block=128)."""
-    import jax.numpy as jnp
-    import __graft_entry__ as g
-    from chroma_tpu.ops import fused as F
-    from chroma_tpu import parallel as par
-
-    monkeypatch.setenv('CHROMA_TPU_PALLAS', '1')
-    assert F._use_pallas_default()
-    par._sharded_propagate_fn.cache_clear()
-
-    geom, det = g._tiny_detector_tables()
-    n = 640                       # 320/shard: a ragged 2.5-block width
-    state = g._photon_state(n, seed=13)
-    mesh = par.make_photon_mesh(jax.devices()[:2])
-    key = jax.random.PRNGKey(4)
-    out = par.propagate_sharded(state, geom, key, mesh, max_steps=12)
-    out = {k: np.asarray(v) for k, v in out.items()}
-
-    # hand-run each shard exactly as _sharded_propagate_fn does
-    for d in range(2):
-        half = {k: v[d * (n // 2):(d + 1) * (n // 2)]
-                for k, v in state.items()}
-        k_d = jax.random.fold_in(key, d)
-        ref, _ = F.propagate_fused(half, geom, k_d, max_steps=12)
-        for k in ('flags', 'pos', 't', 'wavelength', 'weight'):
-            got = out[k][d * (n // 2):(d + 1) * (n // 2)]
-            np.testing.assert_array_equal(got, np.asarray(ref[k]),
-                                          err_msg='%s shard %d' % (k, d))
-
-    par._sharded_propagate_fn.cache_clear()

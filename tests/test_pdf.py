@@ -13,7 +13,7 @@ import pytest
 import tests.conftest  # noqa: F401
 import jax.numpy as jnp
 
-from chroma_tpu.ops.pdf import GPUPDF, GPUKernelPDF
+from chroma_jax.ops.pdf import GPUPDF, GPUKernelPDF
 
 TRANGE = (-50.0, 150.0)
 SIGMA = np.array([4.0, 6.0, 3.0, 5.0], dtype=np.float32)
@@ -190,9 +190,9 @@ def test_eval_pdf_accepts_bare_photons():
     iterating the bundle directly split it into single-photon events
     via Photons.__getitem__, whose scalar fields then crashed the
     GPUPhotons padding — found by tools/bench_suite.py pdf_eval.)"""
-    from chroma_tpu import demo
-    from chroma_tpu.sim import Simulation
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax import demo
+    from chroma_jax.sim import Simulation
+    from chroma_jax.generator.photon import photon_bomb
 
     sim = Simulation(demo.tiny(), geant4_processes=0, seed=5)
     bomb = photon_bomb(400, 400.0, (0.0, 0.0, 0.0)).photons_beg

@@ -9,12 +9,12 @@ import tests.conftest  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from chroma_tpu import event, make
-from chroma_tpu.geometry import Solid, Geometry, Surface, Material, vacuum
-from chroma_tpu.demo.optics import water
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu.ops.geometry_pack import pack_geometry
-from chroma_tpu.ops import photon as gpu_photon
+from chroma_jax import event, make
+from chroma_jax.geometry import Solid, Geometry, Surface, Material, vacuum
+from chroma_jax.demo.optics import water
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax.ops.geometry_pack import pack_geometry
+from chroma_jax.ops import photon as gpu_photon
 
 
 def run(geom, photons, key=0, max_steps=10, **kw):
@@ -79,7 +79,7 @@ def test_time_of_flight(water_box):
     photons = axis_photons(100)
     p = run(water_box, photons, max_steps=1)
     # first wall at z=50mm; n(400nm) in our water model
-    from chroma_tpu.demo.optics import water_refractive_index
+    from chroma_jax.demo.optics import water_refractive_index
     n = water_refractive_index(400.0)
     # photons that made it to the wall without scattering/absorbing
     straight = (p.flags & (event.RAYLEIGH_SCATTER | event.BULK_ABSORB)) == 0
@@ -243,7 +243,7 @@ def test_diffuse_reflection_cosine():
 def test_photon_order_preserved(water_box):
     """photons_end[i] must correspond to photons_beg[i] despite the
     compaction sorts (regression: the Morton sort permuted the batch)."""
-    from chroma_tpu import gpu
+    from chroma_jax import gpu
     n = 4096
     photons = axis_photons(n)
     # unique wavelength per photon survives propagation (no reemission)
@@ -275,7 +275,7 @@ def test_fused_matches_compacting_statistically(water_box):
     compacting driver must sample identical physics: compare terminal
     flag rates and arrival-time moments on a water box."""
     import jax
-    from chroma_tpu.ops.fused import propagate_fused
+    from chroma_jax.ops.fused import propagate_fused
 
     n = 6000
     rng = np.random.RandomState(11)
@@ -310,6 +310,18 @@ def test_fused_matches_compacting_statistically(water_box):
     assert abs(pc.t.mean() - pf.t.mean()) < 0.1 * pc.t.std() + 1e-3
 
 
+def test_propagate_fused_has_one_walker():
+    """The fused driver runs the jnp MBVH walker on every backend: the
+    per-platform walker choice and its on-deck options are gone."""
+    import inspect
+    from chroma_jax.ops import fused
+    params = inspect.signature(fused._propagate_fused_packed).parameters
+    for name in ('use_pallas', 'ondeck', 'od_slots', 'collect_stats'):
+        assert name not in params
+    assert not hasattr(fused, '_use_pallas_default')
+    assert not hasattr(fused, '_service_ondeck')
+
+
 def test_thin_film_transfer_matrix():
     """Validate the thin-film PMT window optics (ops/propagate.py
     thin_film_rta, reference: chroma/cuda/photon.h:400) against an
@@ -318,7 +330,7 @@ def test_thin_film_transfer_matrix():
     the physical R/T (power) coefficients for s and p polarization.
     Covers oblique incidence, absorbing films, interference
     thickness ranges, and total internal reflection at the exit."""
-    from chroma_tpu.ops.propagate import thin_film_rta
+    from chroma_jax.ops.propagate import thin_film_rta
 
     def bvp_rt(n1, n2, n3, cos1, wl_nm, d_nm):
         """(Rs, Ts, Rp, Tp) from first principles, complex128."""
@@ -398,7 +410,7 @@ def test_fused_dynamic_service(water_box):
     under lax.cond once enough lanes drain) must terminate every
     photon, preserve pool order, and sample the same physics as the
     static cadence."""
-    from chroma_tpu.ops.fused import propagate_fused
+    from chroma_jax.ops.fused import propagate_fused
 
     n = 6000
     rng = np.random.RandomState(13)
@@ -444,11 +456,10 @@ def test_fused_chains_uneven_segments(water_box, monkeypatch):
     """Multi-chain fused driver with a photon count NOT divisible by
     the chain count: pool segments differ by one, drain compaction
     kicks in, and the merged service pass handles per-chain widths.
-    (Regression: chains=3 with n % 3 != 0 used to hand the Pallas
-    walker ragged lane widths and fault the device; on CPU it must
-    simply match single-chain physics.)"""
+    (Regression: chains=3 with n % 3 != 0 gives the chains ragged
+    lane widths; the physics must simply match single-chain.)"""
     import jax
-    from chroma_tpu.ops import fused as F
+    from chroma_jax.ops import fused as F
 
     monkeypatch.setattr(F, 'MIN_CHAIN_WIDTH', 128)
     n = 2000   # 2000 % 3 != 0

@@ -7,7 +7,7 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu.rat import RATGeoLoader, RatDBParser
+from chroma_jax.rat import RATGeoLoader, RatDBParser
 
 GDML = textwrap.dedent("""\
 <?xml version="1.0" encoding="UTF-8" standalone="no" ?>

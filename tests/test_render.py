@@ -4,12 +4,12 @@ import numpy as np
 import tests.conftest  # noqa: F401
 import jax.numpy as jnp
 
-from chroma_tpu import make
-from chroma_tpu.geometry import Solid, Geometry, vacuum
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu import gpu
-from chroma_tpu.ops.render import render, GPURays
-from chroma_tpu.tools import from_film
+from chroma_jax import make
+from chroma_jax.geometry import Solid, Geometry, vacuum
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax import gpu
+from chroma_jax.ops.render import render, GPURays
+from chroma_jax.tools import from_film
 
 
 def test_render_sphere_silhouette():
@@ -35,7 +35,7 @@ def test_render_sphere_silhouette():
 
 
 def test_camera_snapshot(tmp_path):
-    from chroma_tpu.camera import Camera
+    from chroma_jax.camera import Camera
     geo = create_geometry_from_obj(
         Solid(make.cube(100.0), vacuum, vacuum, color=0x3300ff00),
         update_bvh_cache=False)
@@ -75,10 +75,10 @@ def test_color_solids():
 
 
 def _tiny_detector_sim():
-    from chroma_tpu.detector import Detector
-    from chroma_tpu.demo.optics import water, r7081hqe_photocathode, \
+    from chroma_jax.detector import Detector
+    from chroma_jax.demo.optics import water, r7081hqe_photocathode, \
         black_surface
-    from chroma_tpu.sim import Simulation
+    from chroma_jax.sim import Simulation
     det = Detector(water)
     det.add_solid(Solid(make.sphere(1000.0, nsteps=16), water, water,
                         surface=black_surface))
@@ -94,8 +94,8 @@ def _tiny_detector_sim():
 def test_event_viewer_track_overlay(tmp_path):
     """EventViewer snapshot with photon-track overlay (VERDICT #7):
     tracks must visibly change the rendered image."""
-    from chroma_tpu.camera import EventViewer
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax.camera import EventViewer
+    from chroma_jax.generator.photon import photon_bomb
     from PIL import Image
 
     sim = _tiny_detector_sim()
@@ -116,7 +116,7 @@ def test_event_viewer_track_overlay(tmp_path):
 
 
 def test_camera_bvh_wireframe_and_anaglyph():
-    from chroma_tpu.camera import Camera
+    from chroma_jax.camera import Camera
     geo = create_geometry_from_obj(_lion())
     cam = Camera(geo, size=(120, 90))
     plain = cam.render_to_array()
@@ -138,7 +138,7 @@ def test_camera_rotate_consistency():
     """rotate() keeps the projected geometry centered: a full orbit
     returns the viewpoint to its start (the round-1 'approximate
     viewpoint' bug made orbits drift, VERDICT weak #7)."""
-    from chroma_tpu.camera import Camera
+    from chroma_jax.camera import Camera
     geo = create_geometry_from_obj(_lion())
     cam = Camera(geo, size=(60, 45))
     start = cam.viewpoint.copy()
@@ -150,9 +150,9 @@ def test_camera_rotate_consistency():
 def test_hybrid_photon_map_render():
     """Hybrid renderer: a diffuse box lit from inside produces a
     nonzero, finite photon-map image (reference hybrid_render.cu)."""
-    from chroma_tpu.ops.hybrid import HybridRenderer
-    from chroma_tpu.geometry import Surface
-    from chroma_tpu.demo.optics import water
+    from chroma_jax.ops.hybrid import HybridRenderer
+    from chroma_jax.geometry import Surface
+    from chroma_jax.demo.optics import water
 
     diffuse = Surface('diffuse_wall')
     diffuse.set('reflect_diffuse', 0.7)
@@ -183,7 +183,7 @@ def test_camera_interactive_keys():
     chroma/camera.py:574-646)."""
     from types import SimpleNamespace
     import pygame
-    from chroma_tpu.camera import Camera
+    from chroma_jax.camera import Camera
     geo = create_geometry_from_obj(
         Solid(make.cube(100.0), vacuum, vacuum, color=0x3300ff00),
         update_bvh_cache=False)

@@ -14,19 +14,19 @@ import pytest
 
 import tests.conftest  # noqa: F401
 
-from chroma_tpu import event
-from chroma_tpu.generator.photon import photon_bomb
+from chroma_jax import event
+from chroma_jax.generator.photon import photon_bomb
 
 
 @pytest.fixture()
 def rootio(monkeypatch):
     import tests.fake_root as fr
     monkeypatch.setitem(sys.modules, 'ROOT', fr.make_fake())
-    sys.modules.pop('chroma_tpu.io.root', None)
-    mod = importlib.import_module('chroma_tpu.io.root')
+    sys.modules.pop('chroma_jax.io.root', None)
+    mod = importlib.import_module('chroma_jax.io.root')
     assert mod.HAVE_ROOT
     yield mod
-    sys.modules.pop('chroma_tpu.io.root', None)
+    sys.modules.pop('chroma_jax.io.root', None)
 
 
 def make_event(i):
@@ -109,11 +109,11 @@ def test_missing_root_raises_with_pointer(tmp_path, monkeypatch):
     """Without ROOT the constructors must fail loudly, pointing at the
     native npz format."""
     monkeypatch.setitem(sys.modules, 'ROOT', None)
-    sys.modules.pop('chroma_tpu.io.root', None)
+    sys.modules.pop('chroma_jax.io.root', None)
     try:
-        mod = importlib.import_module('chroma_tpu.io.root')
+        mod = importlib.import_module('chroma_jax.io.root')
         assert not mod.HAVE_ROOT
         with pytest.raises(ImportError, match='npz'):
             mod.RootWriter(str(tmp_path / 'x.root'))
     finally:
-        sys.modules.pop('chroma_tpu.io.root', None)
+        sys.modules.pop('chroma_jax.io.root', None)

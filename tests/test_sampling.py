@@ -9,7 +9,7 @@ import tests.conftest  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from chroma_tpu.ops.geometry_pack import inverse_cdf, sample_icdf
+from chroma_jax.ops.geometry_pack import inverse_cdf, sample_icdf
 
 
 @pytest.mark.parametrize('distribution', [

@@ -20,13 +20,13 @@ import pytest
 import tests.conftest  # noqa: F401
 import jax
 
-from chroma_tpu import event, make
-from chroma_tpu.geometry import (Solid, Geometry, Surface, Material,
+from chroma_jax import event, make
+from chroma_jax.geometry import (Solid, Geometry, Surface, Material,
                                  DichroicProps, vacuum,
                                  SURFACE_WLS, SURFACE_DICHROIC)
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu.ops.geometry_pack import pack_geometry
-from chroma_tpu.ops import photon as gpu_photon
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax.ops.geometry_pack import pack_geometry
+from chroma_jax.ops import photon as gpu_photon
 
 
 def run(geom, photons, key=0, max_steps=10, **kw):

@@ -5,9 +5,9 @@ Geant4; here they must hold by construction."""
 import numpy as np
 import pytest
 
-from chroma_tpu import event
-from chroma_tpu.demo.optics import water
-from chroma_tpu.generator.trackgen import (TrackGenerator, EMMedium,
+from chroma_jax import event
+from chroma_jax.demo.optics import water
+from chroma_jax.generator.trackgen import (TrackGenerator, EMMedium,
                                            fabjan_fraction, ME)
 
 
@@ -201,7 +201,7 @@ def test_scintillate_step_matches_model():
     (g4gen._SteppingAction) reproduces ScintillationModel semantics:
     Poisson yield on the quenched deposit, uniform emission along the
     step, waveform delays (reference src/GLG4Scint.cc:264-386)."""
-    from chroma_tpu.generator.trackgen import (ScintillationModel,
+    from chroma_jax.generator.trackgen import (ScintillationModel,
                                                scintillate_step)
     mat = _scint_material(birks_mm=0.1)
     model = ScintillationModel(mat)
@@ -238,4 +238,4 @@ def test_stub_is_gone():
     """g4gen raises ImportError (not NotImplementedError) without
     Geant4, so the pool falls back to TrackGenerator."""
     with pytest.raises(ImportError):
-        from chroma_tpu.generator.g4gen import G4Generator  # noqa: F401
+        from chroma_jax.generator.g4gen import G4Generator  # noqa: F401

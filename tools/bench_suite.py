@@ -16,11 +16,13 @@ import os
 import sys
 import time
 
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      '/tmp/chroma_tpu_jax_cache_tpu')
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
 import numpy as np  # noqa: E402
+
+from chroma_jax.cache import enable_jax_cache  # noqa: E402
+
+enable_jax_cache()
 
 
 def main():
@@ -33,8 +35,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    from chroma_tpu import gpu, demo, benchmark
-    from chroma_tpu.sim import Simulation
+    from chroma_jax import gpu, demo, benchmark
+    from chroma_jax.sim import Simulation
 
     gg = gpu.GPUDetector.from_table_cache(args.detector)
     if gg is None:
@@ -49,8 +51,8 @@ def main():
         'backend': jax.default_backend(),
         'nphotons': args.nphotons,
         'config': {
-            k: os.environ.get('CHROMA_TPU_' + k.upper())
-            for k in ('service_every', 'od_slots', 'chains', 'width')},
+            k: os.environ.get('CHROMA_JAX_' + k.upper())
+            for k in ('service_every', 'chains', 'width')},
     }
     t_start = time.time()
 

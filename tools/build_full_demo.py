@@ -1,7 +1,7 @@
 """Build and cache the full demo detector (~10k PMTs, ~42M triangles).
 
 Run once per machine; afterwards bench.py and chroma-sim pick the
-packed tables up from the table cache (~/.chroma_tpu by default).
+packed tables up from the table cache (~/.chroma_jax by default).
 With the round-3 instanced MBVH the pack needs only the flattened
 scene (10k PMT placements share ONE BLAS), so no multi-minute legacy
 BVH build and no 10 GB host-geometry pickle are required.
@@ -20,7 +20,7 @@ def main():
         jax.config.update('jax_platforms', 'cpu')
     except RuntimeError:
         pass
-    from chroma_tpu import demo, gpu
+    from chroma_jax import demo, gpu
 
     t0 = time.time()
     geo = demo.detector()

@@ -3,7 +3,7 @@
 Three consumers build from THIS module, so configuration parity
 between engines holds by construction rather than by careful copying:
 
-  * tools/make_golden.py           — this engine (chroma_tpu), any host
+  * tools/make_golden.py           — this engine (chroma_jax), any host
   * tools/make_golden_reference.py — the CUDA reference (chroma), on a
                                      CUDA host
   * tests/test_golden_analytic.py  — the closed-form expectations
@@ -48,7 +48,7 @@ SPHERE_NSTEPS = 64         # sphere tessellation
 
 def build_analytic_sphere(make, Solid, Material, Surface, Detector):
     """Build the analytic-sphere detector from an engine's own classes
-    (pass chroma_tpu's or reference chroma's — the APIs mirror), so
+    (pass chroma_jax's or reference chroma's — the APIs mirror), so
     both engines simulate the IDENTICAL configuration."""
     medium = Material('clear')
     medium.set('refractive_index', SPHERE_N)

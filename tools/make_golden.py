@@ -27,9 +27,9 @@ from golden_config import (GOLDEN_SEED, NPHOTONS, WAVELENGTH,  # noqa: E402
 
 
 def simulate_histograms(seed):
-    from chroma_tpu import demo
-    from chroma_tpu.sim import Simulation
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax import demo
+    from chroma_jax.sim import Simulation
+    from chroma_jax.generator.photon import photon_bomb
 
     sim = Simulation(demo.tiny(), geant4_processes=0, seed=seed)
     t_hist = np.zeros(len(TIME_BINS) - 1)
@@ -54,7 +54,7 @@ def simulate_histograms(seed):
                 wavelength=np.asarray(WAVELENGTH),
                 bomb_pos=np.asarray(BOMB_POS),
                 seed=np.asarray(GOLDEN_SEED),
-                engine=np.asarray('chroma_tpu'))
+                engine=np.asarray('chroma_jax'))
 
 
 # ---- full-demo golden (VERDICT r2 #9): hit-time PDF + detection
@@ -64,7 +64,7 @@ def simulate_histograms(seed):
 # (tests/test_golden.py::test_golden_full_demo) skips without it.
 def simulate_full_histograms(seed, nevents=FULL_NEVENTS):
     import jax
-    from chroma_tpu import event, gpu
+    from chroma_jax import event, gpu
 
     gg = gpu.GPUDetector.from_table_cache('full')
     if gg is None:
@@ -85,11 +85,11 @@ def simulate_full_histograms(seed, nevents=FULL_NEVENTS):
                 time_bins=FULL_TIME_BINS, nevents=np.asarray(nevents),
                 nphotons=np.asarray(FULL_NPHOTONS),
                 seed=np.asarray(seed),
-                engine=np.asarray('chroma_tpu'))
+                engine=np.asarray('chroma_jax'))
 
 
 def _full_bomb(n, seed):
-    from chroma_tpu.generator.photon import photon_bomb
+    from chroma_jax.generator.photon import photon_bomb
     np.random.seed(seed)
     return photon_bomb(n, WAVELENGTH, (0.0, 0.0, 0.0)).photons_beg
 

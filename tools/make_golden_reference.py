@@ -22,7 +22,7 @@ Configurations (reference shape: chroma/test/test_detector.py:26-77):
                          must land inside the SAME analytic windows
 
 This file intentionally imports ``chroma`` (the reference), not
-``chroma_tpu`` — it will refuse to run where the reference is absent.
+``chroma_jax`` — it will refuse to run where the reference is absent.
 """
 import argparse
 import os
@@ -43,7 +43,7 @@ def _require_reference():
         raise SystemExit(
             'reference chroma is not importable here (%s).  This tool '
             'runs on a CUDA host with pennneutrinos/chroma installed; '
-            'on this machine use tools/make_golden.py (chroma_tpu '
+            'on this machine use tools/make_golden.py (chroma_jax '
             'engine) instead.' % e)
 
 

@@ -1,6 +1,6 @@
-"""Split the service-pass physics cost (r5: ~0.66 ms at 24,576 rows)
-into TABLE LOOKUPS vs the ELEMENTWISE LATTICE, to ground the round-6
-physics-in-kernel estimate (docs/design.md).
+"""Split the service-pass physics cost (24,576 rows) into TABLE
+LOOKUPS vs the ELEMENTWISE LATTICE, to ground any physics-in-kernel
+estimate.
 
 Variants, each K passes in one jit with a serial dependency:
   full        the real physics_update
@@ -8,7 +8,7 @@ Variants, each K passes in one jit with a serial dependency:
               gathers; isolates the gather/lookup cost)
   lattice0    physics_update with BOTH interp stubs and fixed draws
   onehot      the _interp gather re-expressed as a one-hot matmul
-              (MXU-native small-table lookup), timed in isolation
+              (matmul small-table lookup), timed in isolation
   gather      the plain flat[base] interp gather, in isolation
 
 Usage: python tools/probe_physics_cost.py [tiny|full] [K]
@@ -17,8 +17,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      '/tmp/chroma_tpu_jax_cache_tpu')
 sys.path.insert(0, os.path.join(os.path.dirname(
     os.path.abspath(__file__)), '..'))
 
@@ -26,10 +24,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from chroma_tpu import gpu
-from chroma_tpu.benchmark import _isotropic_photons
-from chroma_tpu.ops import propagate as P
-from chroma_tpu.ops.propagate import physics_update, NDRAWS
+from chroma_jax import gpu
+from chroma_jax.benchmark import _isotropic_photons
+from chroma_jax.ops import propagate as P
+from chroma_jax.ops.propagate import physics_update, NDRAWS
+from chroma_jax.cache import enable_jax_cache
+
+enable_jax_cache()
 
 N = 2 * 12288     # nsets*w_all of the production od=1 service pass
 
@@ -134,7 +135,7 @@ def main():
            (jnp.zeros(N, jnp.float32), 0), K)
 
     # one-hot matmul lookup of the same table: idx -> one_hot(nmat*nw)
-    # @ flat.  MXU-native; viable only because the table is small.
+    # @ flat.  Matmul-native; viable only because the table is small.
     tab2d = flat.reshape(nmat * nw, 1)
 
     def onehot_body(i, carry):

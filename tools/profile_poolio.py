@@ -1,8 +1,8 @@
-"""Micro-profile of pool retire/refill primitives (r5).
+"""Micro-profile of pool retire/refill primitives.
 
-The r5 service ablation (profile_service5) attributes ~1.5-1.7 ms of
-the ~2.2 ms stubbed service pass to the pool scatter+gather.  This
-tool measures the primitives in isolation to pick a faster writeback:
+The pool scatter+gather is a large share of the fused driver's service
+pass.  This tool measures the primitives in isolation to pick a faster
+writeback:
 
   gather N rows            pool[idx]                (refill side)
   scatter N rows           pool.at[idx].set(rows)   (retire side)
@@ -12,7 +12,7 @@ tool measures the primitives in isolation to pick a faster writeback:
   scatter via u64 view     (N, 8) u64 rows
 
 Each runs K passes inside one jit with a serial dependency (like the
-real driver).  Subtract the ~0.13 ms/pass fixed loop cost mentally.
+real driver).  Subtract the fixed per-iteration loop cost mentally.
 
 Usage: python tools/profile_poolio.py [K]
 """
@@ -20,15 +20,16 @@ import os
 import sys
 import time
 
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      '/tmp/chroma_tpu_jax_cache_tpu')
-
 sys.path.insert(0, os.path.join(os.path.dirname(
     os.path.abspath(__file__)), '..'))
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from chroma_jax.cache import enable_jax_cache
+
+enable_jax_cache()
 
 jax.config.update('jax_enable_x64', True)   # for the u64-view variants
 

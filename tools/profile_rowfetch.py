@@ -3,7 +3,7 @@ transposed row block cheapest.
 
 The walker consumes rows transposed (words on the major axis, lanes
 minor).  ``rows[ptr].T`` lowers to gather + a full relayout copy
-(HLO: ROOT copy u32[424,n]), an extra ~3.4 KB/lane HBM round trip.
+(HLO: ROOT copy u32[424,n]), an extra ~3.4 KB/lane device-memory round trip.
 Variants:
 
   G0  rows[ptr].T                     gather + materialized transpose
@@ -20,12 +20,13 @@ import os
 import sys
 import time
 
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      '/tmp/chroma_tpu_jax_cache_tpu')
-
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from chroma_jax.cache import enable_jax_cache
+
+enable_jax_cache()
 
 R, W = 16809, 424
 
@@ -85,7 +86,6 @@ def main():
         lambda rows, ptr: rows[ptr],
         lambda blk: (blk[:, 0] & jnp.uint32(1023)), n, K)
     two_streams(n, K)
-
 
 
 def two_streams(n, K):

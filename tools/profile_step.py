@@ -1,4 +1,4 @@
-"""Profile the propagate step on the real TPU: where does time go?
+"""Profile the propagate step on the device: where does time go?
 
 Sections (env PROFILE_SECTIONS, default "C"):
   C  gather cost vs working-set size over the real MBVH table
@@ -11,21 +11,21 @@ import os
 import sys
 import time
 
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      '/tmp/chroma_tpu_jax_cache_tpu')
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from chroma_tpu import gpu, demo
-from chroma_tpu.cache import Cache
-from chroma_tpu.loader import create_geometry_from_obj
-from chroma_tpu.benchmark import _isotropic_photons, _sync
-from chroma_tpu.ops import mbvh as mbvh_ops
-from chroma_tpu.ops import photon as photon_ops
-from chroma_tpu.ops.propagate import propagate_step
-from chroma_tpu import event as ev
+from chroma_jax import gpu, demo
+from chroma_jax.cache import Cache
+from chroma_jax.loader import create_geometry_from_obj
+from chroma_jax.benchmark import _isotropic_photons, _sync
+from chroma_jax.ops import mbvh as mbvh_ops
+from chroma_jax.ops import photon as photon_ops
+from chroma_jax.ops.propagate import propagate_step
+from chroma_jax import event as ev
+from chroma_jax.cache import enable_jax_cache
+
+enable_jax_cache()
 
 
 def timeit(fn, number=3, warm=1):

@@ -1,20 +1,16 @@
 """Tune the fused driver against the LITERAL bench.py protocol.
 
-The round-3/4 sweeps tuned against best-of warm-process loops and
-recorded rates ~10% above what the driver's official bench.py captured
-(2.41M sweep vs 2.18M BENCH_r04).  This tool eliminates that gap by
-sweeping configs through bench.py's own child process: fresh
-subprocess, fresh GPUPhotons upload per rep, number=3, mean-of-last-2
-(round-4 verdict, next-round item 1a).
+Sweeps configs through bench.py's own child process: fresh
+subprocess, fresh GPUPhotons upload per rep, the same number of reps
+and the same mean, so a tuned rate is the rate bench.py reports.
 
 Config knobs ride as env vars into the child:
-  CHROMA_TPU_SERVICE_EVERY, CHROMA_TPU_OD_SLOTS, CHROMA_TPU_CHAINS,
-  CHROMA_TPU_WIDTH
+  CHROMA_JAX_SERVICE_EVERY, CHROMA_JAX_CHAINS, CHROMA_JAX_WIDTH
 
 Usage:
   python tools/tune_bench.py                 # default grid
-  GRID='17:1:3:12288,20:2:3:12288' python tools/tune_bench.py
-      (se:od_slots:chains:width per entry)
+  GRID='17:3:12288,20:3:12288' python tools/tune_bench.py
+      (se:chains:width per entry)
 """
 import os
 import sys
@@ -25,23 +21,20 @@ import bench
 
 
 DEFAULT_GRID = [
-    # (se, od_slots, chains, width).  r5 sweep through this tool:
-    # od=1 se=15/16/17 plateau at 2.20-2.22M; se=18 2.12M; od=2
-    # se=17/22/26 = 2.14/2.18/2.08M; so the default grid brackets the
-    # plateau and keeps one od=2 probe for regression visibility.
-    (17, 1, 3, 12288),   # shipped default
-    (15, 1, 3, 12288),
-    (16, 1, 3, 12288),
-    (18, 1, 3, 12288),
-    (22, 2, 3, 12288),
+    # (se, chains, width); the first entry is the shipped default
+    (17, 3, 12288),
+    (15, 3, 12288),
+    (16, 3, 12288),
+    (18, 3, 12288),
+    (17, 1, 12288),
 ]
 
 
 def parse_grid(s):
     out = []
     for entry in s.split(','):
-        se, od, c, w = (int(x) for x in entry.split(':'))
-        out.append((se, od, c, w))
+        se, c, w = (int(x) for x in entry.split(':'))
+        out.append((se, c, w))
     return out
 
 
@@ -51,16 +44,15 @@ def main():
     detector = os.environ.get('TUNE_DETECTOR', 'full')
     nphotons = int(os.environ.get('TUNE_NPHOTONS', 1 << 20))
     best = (None, 0.0)
-    for se, od, c, w in grid:
-        os.environ['CHROMA_TPU_SERVICE_EVERY'] = str(se)
-        os.environ['CHROMA_TPU_OD_SLOTS'] = str(od)
-        os.environ['CHROMA_TPU_CHAINS'] = str(c)
-        os.environ['CHROMA_TPU_WIDTH'] = str(w)
+    for se, c, w in grid:
+        os.environ['CHROMA_JAX_SERVICE_EVERY'] = str(se)
+        os.environ['CHROMA_JAX_CHAINS'] = str(c)
+        os.environ['CHROMA_JAX_WIDTH'] = str(w)
         t0 = time.time()
-        value = bench._try(detector, nphotons, 3000)
+        res = bench._try(detector, nphotons, 3000)
         dt = time.time() - t0
-        rate = value or 0.0
-        tag = f'se={se:2d} od={od} C={c} w={w:5d}'
+        rate = res['value'] if res else 0.0
+        tag = f'se={se:2d} C={c} w={w:5d}'
         print(f'{tag}: {rate/1e6:6.3f} M photons/s   '
               f'({dt:.0f}s wall)', flush=True)
         if rate > best[1]:

@@ -3,16 +3,15 @@ import os
 import sys
 import time
 
-os.environ.setdefault('CHROMA_TPU_STATS', '1')
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      '/tmp/chroma_tpu_jax_cache_tpu')
-
 import numpy as np
 import jax
 
-from chroma_tpu import gpu
-from chroma_tpu.benchmark import _isotropic_photons, _sync
-from chroma_tpu.ops.fused import propagate_fused
+from chroma_jax import gpu
+from chroma_jax.benchmark import _isotropic_photons, _sync
+from chroma_jax.ops.fused import propagate_fused
+from chroma_jax.cache import enable_jax_cache
+
+enable_jax_cache()
 
 
 def run(state, geom, key, n, width, se):
